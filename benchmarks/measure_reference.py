@@ -9,7 +9,7 @@ multiprocessing) on:
 2. a deterministic golden cloud pair, end-to-end (normals → subsampling
    keypoints → SHOT → basic matching → RANSAC → point-to-plane ICP) to record
    per-stage seconds and the final transform errors vs ground truth — the
-   ATE bound the TPU build must land inside.
+   ATE bound the JAX build must land inside.
 
 Writes BASELINE_measured.json at the repo root; bench.py reads it to report
 ``vs_reference_measured`` and tests/test_reference_parity.py asserts the
@@ -51,7 +51,7 @@ def make_terrain(n, rng, scale=10.0, n_bumps=40):
 
 
 def make_golden_pair(n=2500, seed=21):
-    """Deterministic pair saved to benchmarks/golden_pair.npz so the TPU
+    """Deterministic pair saved to benchmarks/golden_pair.npz so the JAX
     parity test consumes byte-identical inputs."""
     rng = np.random.default_rng(seed)
     xy = rng.uniform(-2, 2, size=(n, 2))

@@ -5,7 +5,7 @@ the master process, then per-keypoint NumPy vectorized local-RF + histogram
 work fanned over a multiprocessing.Pool (shot_parallelization.py:16-312).
 This module reproduces that architecture (KDTree + per-keypoint Python loop +
 process pool) so `bench.py` can measure an honest descriptors/sec baseline on
-the same workload the TPU path runs — the reference itself publishes no
+the same workload the JAX path runs — the reference itself publishes no
 numbers (BASELINE.md).
 
 This is a re-derivation for benchmarking, not a import of the reference.
@@ -15,10 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-try:
-    from sklearn.neighbors import KDTree
-except ImportError:  # pragma: no cover
-    KDTree = None
+from scipy.spatial import cKDTree
 
 
 def _azimuth_idx(x, y):
@@ -118,11 +115,8 @@ def shot_descriptors_cpu(
     n_procs: int = 8,
 ) -> np.ndarray:
     """Reference-architecture SHOT: KDTree radius query + per-keypoint pool."""
-    if KDTree is not None:
-        neighborhoods = KDTree(cloud).query_radius(keypoints, radius)
-    else:
-        d = np.linalg.norm(keypoints[:, None] - cloud[None], axis=-1)
-        neighborhoods = [np.nonzero(row <= radius)[0] for row in d]
+    neighborhoods = [np.asarray(nb, dtype=np.intp) for nb in
+                     cKDTree(cloud).query_ball_point(keypoints, radius)]
 
     tasks = []
     for i, kp in enumerate(keypoints):

@@ -1,11 +1,11 @@
-"""Decompose the 1M-point at-scale stages for the roofline (VERDICT r4 #4/#5):
+"""Decompose the 1M-point at-scale stages:
 
 1. grid build (cold, 1M, halo=2 + normals extras): device sort / ids d2h /
    host searchsorted / host cap passes / device cell_starts / extras packing
 2. FPFH 1M: SPFH window pass vs keypoint aggregation
 3. ICP 1M: per-iteration 1-NN vs solve (via iteration-count scaling)
 
-Run on the live TPU: PYTHONPATH=/root/repo python benchmarks/profile_1m.py
+Run on the GPU: python benchmarks/profile_1m.py
 """
 
 from __future__ import annotations
@@ -23,10 +23,7 @@ def log(msg):
 
 
 def force(x):
-    for leaf in jax.tree_util.tree_leaves(x):
-        if isinstance(leaf, jax.Array):
-            np.asarray(jax.device_get(leaf.ravel()[-1:]))
-    return x
+    return jax.block_until_ready(x)
 
 
 def t(name, fn, reps=1):

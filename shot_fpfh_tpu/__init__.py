@@ -1,17 +1,19 @@
-"""shot_fpfh_tpu — TPU-native point-cloud registration.
+"""shot_fpfh_tpu — point-cloud registration in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the reference
 ``shot-fpfh`` pipeline (normals → keypoints → SHOT/FPFH descriptors → matching
-→ RANSAC → ICP), redesigned for TPU: fixed-shape masked tensors, batched
-kernels, and ``shard_map`` sharding over device meshes.
+→ RANSAC → ICP), built from fixed-shape masked tensors, batched programs and
+``shard_map`` sharding over device meshes; it runs on NVIDIA GPUs and on the
+CPU backend.
 """
 
 import jax as _jax
 
 # Geometry kernels (3x3 eigh, Kabsch SVD, squared-distance expansion) are
-# precision-critical: on TPU the default matmul precision is bf16, which is not
-# enough for near-degenerate covariances or distance cancellation.  Hot large
-# matmuls that tolerate lower precision opt in locally.
+# precision-critical: a GPU's default f32 matmul runs in TF32 (~3 decimal
+# digits), which is not enough for near-degenerate covariances or distance
+# cancellation, so every f32 dot asks for full FP32.  Hot large matmuls that
+# tolerate lower precision (descriptor matching) opt into bf16 locally.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from .core import (  # noqa: E402

@@ -1,7 +1,7 @@
 """Ground-truth-driven match analysis (reference analysis/matches_analysis.py).
 
 Plot-producing helpers return the histogram *data*; rendering is optional and
-headless-gated so the pipeline runs on display-less TPU hosts.
+headless-gated so the pipeline runs on display-less hosts.
 """
 
 from __future__ import annotations

@@ -1,8 +1,11 @@
 """Three-layer config system: YAML defaults → typed dataclasses → CLI overrides.
 
 Schema-compatible with the reference (configuration.py:44-271 and
-config/default.yaml) so existing configs translate 1:1, plus TPU-specific
+config/default.yaml) so existing configs translate 1:1, plus device-specific
 knobs (``ComputeConfig``: neighborhood caps, mesh axes, precision).
+
+The YAML files are read by :func:`load_yaml_subset`, a small loader for the
+subset the shipped configs use, so the CLI needs no YAML package.
 """
 
 from __future__ import annotations
@@ -12,8 +15,6 @@ import warnings
 from abc import ABC, abstractmethod
 from dataclasses import asdict, dataclass, fields
 from typing import Any, Literal, TypedDict
-
-import yaml
 
 
 @dataclass
@@ -79,7 +80,7 @@ class DescriptorConfig(Config):
     normalize: bool = True
     share_local_rfs: bool = True
     min_neighborhood_size: int = 100
-    # n_procs is accepted for reference-config compatibility; the TPU build has
+    # n_procs is accepted for reference-config compatibility; the JAX build has
     # no process pool (the keypoint batch axis shards over the mesh instead).
     n_procs: int = 8
 
@@ -165,7 +166,7 @@ class RegistrationEvaluationConfig(Config):
 
 @dataclass
 class ComputeConfig(Config):
-    """TPU-specific knobs with no reference counterpart."""
+    """Device-specific knobs with no reference counterpart."""
 
     k_max_descriptor: int = 512   # neighborhood cap for SHOT/local RFs
     k_max_fpfh: int = 128         # neighborhood cap for SPFH
@@ -206,6 +207,87 @@ _SECTIONS = {
 }
 
 
+_YAML_BOOL = {"true": True, "false": False}
+
+
+def _yaml_scalar(text: str, where: str):
+    """One scalar of the subset: ``~``/``null``, ``true``/``false``, a quoted
+    string, an int or a float (``1e-3`` included)."""
+    if text in ("~", "null"):
+        return None
+    if text in _YAML_BOOL:
+        return _YAML_BOOL[text]
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "\"'":
+        body = text[1:-1]
+        if text[0] in body or "\\" in body:
+            raise ValueError(f"{where}: escapes in quoted strings are not supported")
+        return body
+    for cast in (int, float):
+        try:
+            return cast(text)
+        except ValueError:
+            pass
+    raise ValueError(f"{where}: unsupported YAML value {text!r} "
+                     "(quote strings; no lists, flow collections or blocks)")
+
+
+def _strip_comment(line: str) -> str:
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "\"'":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def load_yaml_subset(text: str) -> dict[str, Any]:
+    """Parse the YAML subset the shipped configs use: nested block maps of
+    ``key: value`` lines with scalars as in :func:`_yaml_scalar`, ``#``
+    comments and blank lines.  Anything else (lists, flow collections,
+    anchors, block scalars, tabs, unquoted strings) raises ``ValueError``."""
+    root: dict[str, Any] = {}
+    stack: list[tuple[int, dict]] = [(0, root)]     # (key indent, map)
+    pending = None            # (map, key, indent) of a key with no value yet
+    for n, raw in enumerate(text.splitlines(), 1):
+        where = f"line {n}"
+        if "\t" in raw:
+            raise ValueError(f"{where}: tabs are not supported")
+        line = _strip_comment(raw).rstrip()
+        if not line.strip() or line.strip() == "---":
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        key, sep, value = line.strip().partition(":")
+        if (not sep or not key or key[0] in "-[{&*!|>?'\""
+                or (value and value[0] != " ")):
+            raise ValueError(f"{where}: expected 'key: value', got {raw.strip()!r}")
+        if pending is not None:
+            parent, p_key, p_indent = pending
+            pending = None
+            if indent > p_indent:
+                parent[p_key] = {}
+                stack.append((indent, parent[p_key]))
+            else:
+                parent[p_key] = None              # empty value: YAML null
+        while indent < stack[-1][0]:
+            stack.pop()
+        if indent != stack[-1][0]:
+            raise ValueError(f"{where}: inconsistent indentation")
+        current = stack[-1][1]
+        if key in current:
+            raise ValueError(f"{where}: duplicate key {key!r}")
+        value = value.strip()
+        if value:
+            current[key] = _yaml_scalar(value, where)
+        else:
+            pending = (current, key, indent)
+    if pending is not None:
+        pending[0][pending[1]] = None
+    return root
+
+
 def load_config_from_yaml(
     config_file_path: str, command_line_args: dict[str, Any] | None = None
 ) -> PipelineConfig:
@@ -215,7 +297,7 @@ def load_config_from_yaml(
     command_line_args = command_line_args or {}
 
     with open(config_file_path) as f:
-        config = yaml.safe_load(f.read())["registration"]
+        config = load_yaml_subset(f.read())["registration"]
 
     out = {}
     for name, cls in _SECTIONS.items():

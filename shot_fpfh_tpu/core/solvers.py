@@ -1,6 +1,6 @@
 """Closed-form rigid alignment solvers, batched and mask-weighted.
 
-TPU-native rewrites of the reference solvers (core/solvers.py:9-48):
+Batched rewrites of the reference solvers (core/solvers.py:9-48):
 
 - ``solve_point_to_point`` — Kabsch/Umeyama via 3x3 SVD with the det<0
   reflection fix.  Accepts an optional per-point weight/mask so ICP's inlier

@@ -1,6 +1,6 @@
 """SE(3) rigid transforms as JAX pytrees, plus quaternion/Euler conversions.
 
-TPU-native replacement for the reference's ``RigidTransform`` wrapper
+Batched replacement for the reference's ``RigidTransform`` wrapper
 (/root/reference/shot_fpfh/core/rigid_transform.py:10-106).  Everything here is
 pure-functional and jit/vmap friendly: no scipy, no host round-trips, and the
 SE(3) inverse is the mathematically correct ``(Rᵀ, -Rᵀ t)`` (the reference's

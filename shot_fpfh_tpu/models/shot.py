@@ -1,4 +1,4 @@
-"""SHOT descriptors (Signature of Histograms of OrienTations), TPU formulation.
+"""SHOT descriptors (Signature of Histograms of OrienTations), batched formulation.
 
 Parity target: the reference implementation of Salti/Tombari/Di Stefano's SHOT
 (descriptors/shot.py, descriptors/shot_parallelization.py).  The reference
@@ -30,8 +30,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core.subsampling import grid_subsample
-# the bin conventions live in ops.descriptor_bins (single source of truth,
-# shared with the Pallas kernels); re-exported here under their historic names
+# the bin conventions live in ops.descriptor_bins (single source of truth);
+# re-exported here under their historic names
 from ..ops.descriptor_bins import (
     N_AZ as N_AZIMUTH_BINS,
     N_COS as N_COSINE_BINS,
@@ -150,7 +150,7 @@ def local_reference_frames(
 def _shot_bilinear_histogram(groups, valid, chunk: int = 512) -> jnp.ndarray:
     """Σ over groups of ``onehot(hi) ⊗ Σ_t w_t·onehot(lo_t)`` — the SHOT
     accumulation with the cell-side one-hots pre-summed per shared hi index
-    (VPU adds), so the MXU contraction width is K per group instead of
+    (elementwise adds), so the contraction width is K per group instead of
     K x n_terms.
 
     ``groups``: list of (idx_hi (Q, K), [(idx_lo (Q, K), w (Q, K)), ...]).
@@ -159,9 +159,8 @@ def _shot_bilinear_histogram(groups, valid, chunk: int = 512) -> jnp.ndarray:
     q, m = valid.shape
     # One-shot (single scan step) whenever the (Q, m, 32) one-hot operand
     # fits a ~1 GB budget: the chunked scan re-streams the cell-side operand
-    # through HBM once per chunk, measured 2.05 -> 1.11 ms at (4096, 768) by
-    # just widening the chunk to the full window.  The scan stays for
-    # at-scale windows that would not fit.
+    # through device memory once per chunk.  The scan stays for at-scale
+    # windows that would not fit.
     if q * m * n_lo * 4 <= 1 << 30:
         chunk = max(chunk, m)
     n_chunks = -(-m // chunk)
@@ -192,16 +191,13 @@ def _shot_bilinear_histogram(groups, valid, chunk: int = 512) -> jnp.ndarray:
                 w_c = rest.pop(0) * v_c
                 t = (lo_c[:, :, None] == bins_lo).astype(jnp.float32) * w_c[:, :, None]
                 b = t if b is None else b + t
-            # bf16 inputs, f32 accumulation: the one-hot side is exact in
-            # bf16 and the MXU natively accumulates bf16 x bf16 -> f32; the
-            # cell-side weights lose ~2^-8 relative per term, well inside the
-            # descriptor tolerance (oracle test atol 2e-3 on normalized
-            # descriptors), and the batched (11, K)x(K, 32) matmul — the
-            # histogram's MXU-shape-bound core — runs at the bf16 rate.
-            a = (hi_c[:, :, None] == bins_hi).astype(jnp.bfloat16)
+            # f32 operands: bf16 cell-side weights would round ~2^-8 per
+            # term, and values one ulp apart on two backends can round to
+            # different bf16 neighbours (a 1e-4 change of a normalized
+            # descriptor between the GPU and the CPU)
+            a = (hi_c[:, :, None] == bins_hi).astype(jnp.float32)
             acc = acc + jnp.einsum(
-                "qmh,qml->qhl", a, b.astype(jnp.bfloat16),
-                preferred_element_type=jnp.float32,
+                "qmh,qml->qhl", a, b, preferred_element_type=jnp.float32,
             )
         return acc, None
 
@@ -253,28 +249,6 @@ def _shot_finalize(desc, count, normalize, min_neighborhood_size):
     return jnp.where(keep, desc, 0.0)
 
 
-def _use_fused_kernel() -> bool:
-    """Route the window path through the fused Pallas LRF+binning+histogram
-    kernel (``ops.pallas_radius.fused_kernels_enabled`` policy), except when
-    the debug sanity checks are on — they live in the XLA binning."""
-    from ..ops.pallas_radius import fused_kernels_enabled
-
-    return fused_kernels_enabled() and not _DEBUG["enabled"]
-
-
-def _use_dma_kernel(grid) -> bool:
-    """Route the grid window path through the run-DMA fused SHOT kernel
-    (``ops.pallas_shot_dma``) — fetch + LRF + binning + histogram in one
-    program, no XLA gather.  Requires an xy-row grid carrying normals
-    extras; the debug sanity checks live in the XLA binning."""
-    from ..ops.pallas_radius import dma_kernel_enabled
-
-    return (dma_kernel_enabled() and not _DEBUG["enabled"]
-            and bool(getattr(grid, "use_xyrow", False))
-            and getattr(grid, "xyrow_run_cap", 0) > 0
-            and grid.packed_sorted.shape[1] >= 6)
-
-
 def _shot_accumulate(lx, ly, lz, rho, cosine, valid, radius,
                      normalize, min_neighborhood_size):
     """Binning + histogram + normalization from per-neighbor (Q, K) scalars
@@ -287,14 +261,14 @@ def _shot_accumulate(lx, ly, lz, rho, cosine, valid, radius,
 
     # The 352-bin space factorizes as 11 cosine bins x 32 spatial cells
     # (azimuth*4 + elevation*2 + radial) and the scatter-add becomes a
-    # factored one-hot contraction on the MXU.  ``shot_soft_bins``'s merged
+    # factored one-hot contraction (a batched matmul).  ``shot_soft_bins``'s merged
     # terms cut the contraction from the naive 10K width (10 contributions x
     # K neighbors) to 2K:
     #   1. the four contributions that land in the SAME (cos_bin, cell) pair
     #      — cosine-current, husk-current, volume-current, azimuth-current —
     #      merge into one summed weight (``w_same``);
     #   2. nine of the ten contributions share the cos_bin one-hot, so their
-    #      cell-side one-hots sum FIRST (VPU adds) and contract once; only
+    #      cell-side one-hots sum FIRST (elementwise adds) and contract once; only
     #      the cosine-neighbor term needs the second (cos_nb) one-hot.
     cos_bin_terms = [
         (sb.base, sb.w_same),
@@ -357,14 +331,13 @@ def shot_from_window_ff(
     rf_dist_inf=None,
     rf_radius=None,
 ):
-    """SHOT from a dense FEATURE-FIRST candidate window — the consumer of
-    ``ops.pallas_radius.fetch_windows_pallas(..., feature_first=True)``.
+    """SHOT from a dense FEATURE-FIRST candidate window (the layout
+    ``ops.grid_hash.window_distances`` returns).
 
     ``window_vals``: (Q, 8, W) ``[x y z nx ny nz 0 0]`` rows; ``window_dist``:
-    (Q, W) distance-or-+inf.  The feature-first layout matters: keeping the
-    8-feature axis in sublanes means no (Q, W, 8) transpose/materialization
-    between the kernel and the einsums (the transpose alone made the dense
-    window path HBM-bound), and every interpolation stays a (Q, W) VPU op.
+    (Q, W) distance-or-+inf.  The feature-first layout keeps every
+    interpolation a (Q, W) elementwise op with no (Q, W, 8) transpose
+    between the fetch and the einsums.
     No k cap — the EXACT uncapped radius neighborhood contributes, like the
     reference's (descriptors/shot.py:175-306).
 
@@ -378,30 +351,6 @@ def shot_from_window_ff(
     nrms = jnp.where(ok[:, None, :], window_vals[:, 3:6, :], 0.0)
     centered = jnp.where(ok[:, None, :], pts - keypoints[:, :, None], 0.0)
     rho = jnp.where(ok, window_dist, 0.0)
-
-    if _use_fused_kernel():
-        # one Pallas program: local RFs (when not shared across scales) +
-        # binning + factored one-hot contraction with the one-hots built in
-        # VMEM — the window is read from HBM once and neither the (Q, W,
-        # 11/32) one-hot operands nor the binning intermediates ever stream
-        # through HBM (docs/ROOFLINE.md)
-        from ..ops.pallas_shot_fused import shot_binning_histogram
-
-        if local_rfs is not None:
-            rfs = local_rfs
-            hist = shot_binning_histogram(
-                window_vals, window_dist, keypoints, rfs, radius
-            )
-        else:
-            hist, rfs = shot_binning_histogram(
-                window_vals, window_dist, keypoints, None, radius,
-                rf_dist_inf=rf_dist_inf, rf_radius=rf_radius,
-            )
-        count = jnp.sum(ok & (window_dist > 0), axis=-1)
-        return (
-            _shot_finalize(hist, count, normalize, min_neighborhood_size),
-            rfs,
-        )
 
     if local_rfs is not None:
         rfs = local_rfs
@@ -449,20 +398,9 @@ def _shot_window_chunked(grid, kp, local_rfs, radius, normalize,
     window, mask by radius, and run LRF + histogram over the window directly —
     NO top-k and NO k_max truncation (3000/4096 bench neighborhoods exceeded
     the 256 cap), so the result is the exact uncapped-neighborhood SHOT the
-    reference computes, and the selection cost (8.4 ms of the 21 ms bench
-    rep) disappears.  Measured 20.9 -> 14.9 ms for 4096 descriptors+matching.
+    reference computes, and the selection cost disappears.
     """
     from ..ops.grid_hash import window_distances
-
-    if _use_dma_kernel(grid):
-        from ..ops.pallas_shot_dma import shot_descriptor_dma
-
-        return shot_descriptor_dma(
-            grid, kp, radius,
-            rfs=local_rfs if has_rfs else None, rf_radius=rf_radius,
-            normalize=normalize,
-            min_neighborhood_size=min_neighborhood_size,
-        )
 
     q = kp.shape[0]
     n_chunks = -(-q // chunk)
@@ -546,12 +484,12 @@ def compute_shot_descriptor(
 
 
 class ShotComputer:
-    """Single/bi/multi-scale SHOT drivers — the TPU replacement for the
+    """Single/bi/multi-scale SHOT drivers — the batched replacement for the
     reference's ``ShotMultiprocessor`` (shot_parallelization.py:16-312).
 
     Where the reference fans keypoints out over a process pool, every scale
     here is one batched device program; "parallelism" is the keypoint batch
-    axis, which also shards over a TPU mesh (see ``parallel.sharded``).
+    axis, which also shards over a device mesh (see ``parallel.sharded``).
     """
 
     def __init__(
@@ -574,7 +512,7 @@ class ShotComputer:
         # scan/ref and successive pairs reuse one compiled program per bucket.
         self.pad_queries_to = pad_queries_to
         # Multi-chip: a jax.sharding.Mesh routes every scale through
-        # parallel.sharded (keypoint-sharded shard_map) — the TPU counterpart
+        # parallel.sharded (keypoint-sharded shard_map) — the device counterpart
         # of the reference's n_procs actually driving its pool
         # (shot_parallelization.py:31).
         self.mesh = mesh

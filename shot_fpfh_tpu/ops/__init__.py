@@ -7,20 +7,10 @@ from .neighbors import (
     radius_search,
 )
 from .grid_hash import set_window_group, window_group_default
-from .pallas_radius import (
-    dma_kernel_enabled,
-    fused_kernels_enabled,
-    set_dma_kernel,
-    set_fused_kernels,
-)
 
 __all__ = [
     "eigh3x3",
     "pca_eigh",
-    "dma_kernel_enabled",
-    "fused_kernels_enabled",
-    "set_dma_kernel",
-    "set_fused_kernels",
     "set_window_group",
     "window_group_default",
     "Neighborhoods",

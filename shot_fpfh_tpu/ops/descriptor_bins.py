@@ -5,18 +5,14 @@ SHOT's quadrilinear soft-binning (reference
 husks at r/4 and 3r/4, elevation volumes at pi/4 and 3pi/4, cosine
 round-half-even, wrap-around azimuth) and FPFH's Darboux frame (reference
 /root/reference/shot_fpfh/descriptors/fpfh.py:50-66) are each consumed by
-multiple programs: the XLA paths (``models.shot._shot_accumulate``,
-``models.fpfh._spfh_window_block``), and the fused window kernels
-(``ops.pallas_shot_fused``, ``ops.pallas_fpfh_fused``).  A convention fix
-applied to one copy but not the others silently breaks fused-vs-XLA parity,
-so the conventions live here exactly once.
+multiple programs (``models.shot._shot_accumulate``,
+``models.fpfh._spfh_window_block`` and the sharded and fused variants), so
+the conventions live here exactly once.
 
-Everything in this module is elementwise ``jnp`` that lowers through both XLA
-and Mosaic: no ``%`` (``wrap`` instead), no trig (callers pass theta/phi,
-computed with ``jnp.arctan2``/``arccos`` in XLA or the ``mosaic_atan2``
-polynomial below in kernels), no select/xor on i1 vectors (booleans only multiply
-or cast).  Parity with the reference is guarded independently by the NumPy
-re-derivation oracles in ``tests/test_shot.py`` / ``tests/test_fpfh.py``.
+Everything in this module is elementwise ``jnp``; callers pass theta/phi
+computed with ``jnp.arctan2``/``arccos``.  Parity with the reference is
+guarded independently by the NumPy re-derivation oracles in
+``tests/test_shot.py`` / ``tests/test_fpfh.py``.
 """
 
 from __future__ import annotations
@@ -34,8 +30,8 @@ SHOT_DIM = N_COS * N_LO                 # 352
 
 
 def wrap(v, n):
-    """``v mod n`` for ``v`` in [-1, n] without an integer rem op (Mosaic has
-    none); identical to ``%`` on that domain."""
+    """``v mod n`` for ``v`` in [-1, n] without an integer rem op;
+    identical to ``%`` on that domain."""
     v = jnp.where(v < 0, v + n, v)
     return jnp.where(v >= n, v - n, v)
 
@@ -44,8 +40,7 @@ def azimuth_bin(x, y):
     """8-way azimuth octant of (x, y), clockwise, first bin between pi and
     3pi/4 — bit-for-bit the reference convention (shot.py:51-70).
 
-    Arithmetic-only formulation: Mosaic cannot lower select/xor on i1
-    vectors (trunci i8 -> i1 fails), so booleans cast to int32 immediately;
+    Arithmetic-only formulation: booleans cast to int32 immediately and
     ``a + h - 2ah`` is xor."""
     a = ((y > 0) | ((y == 0) & (x < 0))).astype(jnp.int32)
     h = ((x > 0) | ((x == 0) & (y > 0))).astype(jnp.int32)
@@ -179,34 +174,11 @@ def shot_soft_bins(lx, ly, lz, rho, theta, phi, cosine, radius) -> ShotBins:
     )
 
 
-def mosaic_atan2(y, x):
-    """f32 atan2 for Mosaic (no native lowering): octant reduction + degree-11
-    odd minimax polynomial, max error ~1e-6 rad — far below the descriptor
-    tolerance (soft-bin weights are Lipschitz in the angle).  Shared by every
-    fused kernel (``pallas_shot_fused``, ``pallas_fpfh_fused``,
-    ``pallas_shot_dma``); lives here with the other bin/angle conventions
-    since round 5 retired its original home, the three-pass streaming oracle
-    ``ops/pallas_shot.py`` (DESIGN.md §11)."""
-    ax = jnp.abs(x)
-    ay = jnp.abs(y)
-    mx = jnp.maximum(ax, ay)
-    mn = jnp.minimum(ax, ay)
-    t = mn / jnp.maximum(mx, 1e-30)
-    s = t * t
-    p = t * (0.99997726 + s * (-0.33262347 + s * (0.19354346 + s * (
-        -0.11643287 + s * (0.05265332 + s * -0.01172120)))))
-    r = jnp.where(ay > ax, jnp.float32(jnp.pi / 2) - p, p)
-    r = jnp.where(x < 0, jnp.float32(jnp.pi) - r, r)
-    return jnp.where(y < 0, -r, r)
-
-
-def darboux_angles(dx, dy, dz, nx, ny, nz, ux, uy, uz, d_safe,
-                   atan2=jnp.arctan2):
+def darboux_angles(dx, dy, dz, nx, ny, nz, ux, uy, uz, d_safe):
     """(alpha, phi, theta) of the reference Darboux frame (fpfh.py:50-66):
     u = query normal, v = diff x u (UNNORMALIZED, the reference's semantics),
     w = u x v; alpha = v.n_j, phi = diff.u / |diff|, theta = atan2(n_j.w,
-    n_j.u).  ``d_safe`` is |diff| with invalid/zero lanes replaced by 1;
-    ``atan2`` is injectable (``mosaic_atan2`` in Mosaic kernels)."""
+    n_j.u).  ``d_safe`` is |diff| with invalid/zero lanes replaced by 1."""
     vx = dy * uz - dz * uy
     vy = dz * ux - dx * uz
     vz = dx * uy - dy * ux
@@ -215,5 +187,5 @@ def darboux_angles(dx, dy, dz, nx, ny, nz, ux, uy, uz, d_safe,
     wz = ux * vy - uy * vx
     alpha = vx * nx + vy * ny + vz * nz
     phi = (dx * ux + dy * uy + dz * uz) / d_safe
-    theta = atan2(nx * wx + ny * wy + nz * wz, nx * ux + ny * uy + nz * uz)
+    theta = jnp.arctan2(nx * wx + ny * wy + nz * wz, nx * ux + ny * uy + nz * uz)
     return alpha, phi, theta

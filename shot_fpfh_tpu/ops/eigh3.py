@@ -1,16 +1,16 @@
 """Batched symmetric 3x3 eigendecomposition via fixed-sweep cyclic Jacobi.
 
-This is the TPU-native "native layer" replacement for the per-neighborhood
+This is the batched "native layer" replacement for the per-neighborhood
 ``np.linalg.eigh`` calls in the reference (normals:
 descriptors/pca_based_descriptors.py:24, SHOT local RFs:
 descriptors/shot.py:36).  The reference calls LAPACK once per 3x3 matrix inside
 a Python loop; here the entire batch is one vectorized computation — a handful
-of fused 3x3 matmuls on the VPU, with no data-dependent control flow, so it
+of fused elementwise 3x3 updates, with no data-dependent control flow, so it
 vmaps/shards freely over keypoint blocks.
 
 Cyclic Jacobi on a 3x3 symmetric matrix converges to machine precision in a
 handful of sweeps; we run a fixed number (no early exit — cheaper than a
-convergence check on TPU and fully deterministic).
+convergence check and fully deterministic).
 """
 
 from __future__ import annotations
@@ -29,10 +29,9 @@ def _rotate_planes(a, v, p: int, q: int):
 
     ``a`` is the symmetric matrix as a dict of 6 batched scalars
     {(i, j): plane} with i <= j; ``v`` is the eigenvector matrix as
-    {(row, col): plane}.  Everything is flat VPU arithmetic on (...,)-shaped
-    arrays — no (.., 3, 3) batched matmuls, which lower to ~36 tiny
-    MXU-hostile dot_generals and dominated the old implementation (measured
-    9.3ms -> 0.3ms for a 4096 batch on TPU v5e).
+    {(row, col): plane}.  Everything is flat elementwise arithmetic on
+    (...,)-shaped arrays — no (.., 3, 3) batched matmuls, which lower to ~36
+    tiny dot_generals and dominated the old implementation.
     """
     r = ({0, 1, 2} - {p, q}).pop()
     key = lambda i, j: (i, j) if i <= j else (j, i)  # noqa: E731

@@ -7,22 +7,12 @@ tensors.  Two interchangeable implementations:
 
 - ``scatter``: one fused XLA scatter-add — simple, exact, fast on CPU.
 - ``onehot``: ``lax.scan`` over index chunks, each chunk accumulated with a
-  one-hot masked-compare + sum (VPU-friendly); on TPU this avoids XLA's
-  serialized scatter lowering.
+  one-hot masked-compare + sum (elementwise work, no scatter).
 
 Note on semantics: NumPy's fancy ``a[idx] += w`` silently drops duplicate
 indices within one statement; ``np.add.at`` semantics (true accumulation, as in
 the SHOT/FPFH papers) is what both implementations produce.  This is a
 deliberate correction of reference behavior (documented deviation).
-
-Pallas note: an early Mosaic kernel for the factored contraction placed the
-bin dims in LANES and measured worse than this XLA formulation (the 11/32-bin
-minor dims pad to 128 lanes in VMEM — 4-12x memory blowup).  The revisit with
-a bins-in-SUBLANES, neighbors-in-lanes layout shipped as
-``ops/pallas_shot_fused.py`` / ``ops/pallas_fpfh_fused.py``: those kernels
-build the one-hots in VMEM and fuse the whole binning+contraction stage
-(gated by ``ops.pallas_radius.fused_kernels_enabled``).  This module remains
-the XLA path used on CPU/virtual meshes and under the debug checks.
 """
 
 from __future__ import annotations
@@ -88,12 +78,12 @@ def factored_histogram(
     chunk: int = 512,
 ) -> jnp.ndarray:
     """Histogram over a product bin space ``bin = hi * n_lo + lo`` as a batched
-    MXU matmul: ``out[q] = Σ_m onehot(hi_m) ⊗ (w_m · onehot(lo_m))``.
+    matmul: ``out[q] = Σ_m onehot(hi_m) ⊗ (w_m · onehot(lo_m))``.
 
-    This is the TPU-native form of the SHOT/FPFH scatter-add: building the two
-    small one-hots costs ``M·(n_hi+n_lo)`` VPU compares instead of
-    ``M·(n_hi·n_lo)``, and the accumulation over neighbors is a contraction
-    the MXU executes directly.  Out-of-range indices contribute nothing.
+    The SHOT/FPFH scatter-add as a contraction: building the two small
+    one-hots costs ``M·(n_hi+n_lo)`` compares instead of ``M·(n_hi·n_lo)``,
+    and the accumulation over neighbors is a matmul.  Out-of-range indices
+    contribute nothing.
 
     Returns (Q, n_hi·n_lo) float32.
     """

@@ -1,12 +1,12 @@
-"""Fixed-shape neighbor search: the TPU replacement for ``sklearn.neighbors.KDTree``.
+"""Fixed-shape neighbor search: the batched replacement for ``sklearn.neighbors.KDTree``.
 
 The reference calls ``KDTree.query`` / ``query_radius`` at every pipeline stage
-(8 import sites — SURVEY.md §1 L1'), producing ragged object arrays.  On TPU we
+(8 import sites — SURVEY.md §1 L1'), producing ragged object arrays.  On the device we
 invert the design: every query returns a fixed-``k`` padded index matrix plus a
-validity mask, and the distance computation is a tiled MXU matmul
+validity mask, and the distance computation is a tiled matmul
 (``‖q−p‖² = ‖q‖² + ‖p‖² − 2 q·p``) followed by ``top_k``.
 
-Brute force is exact and MXU-friendly; it is the v1 engine (SURVEY.md §7 build
+Brute force is exact and matmul-friendly; it is the v1 engine (SURVEY.md §7 build
 order step 2).  A grid-hash engine for ~1M-point clouds plugs in behind the
 same API (see ``grid_hash.py``).
 """
@@ -19,7 +19,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-# Upper bound on elements of one (query_chunk x N) distance tile: ~64M f32 = 256 MB HBM.
+# Upper bound on elements of one (query_chunk x N) distance tile: ~64M f32 = 256 MB device memory.
 _MAX_TILE_ELEMS = 1 << 26
 
 
@@ -38,7 +38,7 @@ class Neighborhoods(NamedTuple):
 
 
 def _sq_dists(queries: jnp.ndarray, points: jnp.ndarray) -> jnp.ndarray:
-    """(Qc, N) squared distances via the matmul expansion (MXU path)."""
+    """(Qc, N) squared distances via the matmul expansion (matmul path)."""
     qn = jnp.sum(queries * queries, axis=-1, keepdims=True)
     pn = jnp.sum(points * points, axis=-1)[None, :]
     cross = queries @ points.T
@@ -86,36 +86,6 @@ def knn(queries: jnp.ndarray, points: jnp.ndarray, k: int) -> Neighborhoods:
     mask = jnp.isfinite(d2)
     # Exact distances for the selected neighbors (the matmul expansion loses
     # precision for very close pairs).
-    diff = queries[:, None, :] - points[jnp.where(mask, idx, 0)]
-    dist = jnp.where(mask, jnp.linalg.norm(diff, axis=-1), jnp.inf)
-    return Neighborhoods(jnp.where(mask, idx, 0), dist, mask)
-
-
-@functools.partial(jax.jit, static_argnames=("k",))
-def approx_knn(queries: jnp.ndarray, points: jnp.ndarray, k: int) -> Neighborhoods:
-    """k near-neighbors via ``jax.lax.approx_max_k`` (TPU-native partial
-    reduction; exact on CPU).  Each query gets exactly ``min(k, N)`` points;
-    a missed true neighbor is replaced by a slightly farther one — the same
-    upward-only bias :func:`~shot_fpfh_tpu.ops.grid_hash.kth_distance_bound`
-    relies on, harmless for neighborhood statistics (PCA covariance) and
-    ~10x cheaper than exact ``top_k`` over very wide rows."""
-    queries = jnp.asarray(queries, jnp.float32)
-    points = jnp.asarray(points, jnp.float32)
-    n = points.shape[0]
-    k_eff = min(k, n)
-
-    def one_chunk(qc):
-        d2 = _sq_dists(qc, points)
-        neg, idx = jax.lax.approx_max_k(-d2, k_eff)
-        return idx.astype(jnp.int32), -neg
-
-    chunk = _query_chunk_size(n)
-    idx, d2 = _chunked_over_queries(one_chunk, queries, chunk)
-    if k_eff < k:
-        pad = ((0, 0), (0, k - k_eff))
-        idx = jnp.pad(idx, pad)
-        d2 = jnp.pad(d2, pad, constant_values=jnp.inf)
-    mask = jnp.isfinite(d2)
     diff = queries[:, None, :] - points[jnp.where(mask, idx, 0)]
     dist = jnp.where(mask, jnp.linalg.norm(diff, axis=-1), jnp.inf)
     return Neighborhoods(jnp.where(mask, idx, 0), dist, mask)

@@ -1,9 +1,9 @@
 """Device-mesh helpers for the sharded registration pipeline.
 
 The reference's only parallelism is a host process pool over keypoints
-(shot_parallelization.py:31).  The TPU equivalent is a 1-D device mesh over
+(shot_parallelization.py:31).  The device equivalent is a 1-D device mesh over
 the *point/keypoint axis* (SURVEY.md §5 "long-context" row): keypoint blocks
-are data-parallel for descriptors, ref-descriptor tiles ride an ICI ring for
+are data-parallel for descriptors, ref-descriptor tiles ride a device ring for
 matching, and RANSAC/ICP reductions are ``psum`` trees.
 """
 

@@ -1,16 +1,16 @@
-"""Multi-host orchestration: N-host pod-slice registration (BASELINE config #5).
+"""Multi-host orchestration: N-host registration (BASELINE config #5).
 
-The reference is single-node; multi-host is a new requirement of the TPU
+The reference is single-node; multi-host is a new requirement of the JAX
 rebuild (SURVEY.md intro).  Design:
 
-- ``jax.distributed.initialize`` once per process (DCN coordination).
+- ``jax.distributed.initialize`` once per process (cross-process coordination).
 - Each host loads/keeps its local shard of the keypoint work
   (``jax.make_array_from_process_local_data``); the support cloud is
-  replicated per host (point clouds are small next to HBM).
+  replicated per host (point clouds are small next to device memory).
 - All compute reuses the single-program sharded stages in ``sharded.py`` —
   GSPMD makes an 8-chip-per-host x N-host mesh look like one mesh whose
-  collectives ride ICI within a host and DCN across hosts.  The stages'
-  communication profile keeps DCN traffic tiny: descriptors never cross
+  collectives ride NVLink within a host and the network across hosts.  The stages'
+  communication profile keeps cross-host traffic tiny: descriptors never cross
   hosts except as ring tiles (matching) and 6x6/22-float psums (ICP/RANSAC).
 
 Nothing here requires real multi-host hardware to validate the program
@@ -40,6 +40,7 @@ def run_multihost(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
+    local_device_ids: list[int] | None = None,
     normals_k: int = 20,
     keypoint_voxel: float = 0.25,
     descriptor_choice: str = "shot_single_scale",
@@ -58,11 +59,11 @@ def run_multihost(
     """End-to-end multi-host registration (BASELINE config #5).
 
     Every participating process calls this with its own ``process_id``; the
-    composition is: DCN init → per-host PLY ingest (each host reads its local
+    composition is: distributed init → per-host PLY ingest (each host reads its local
     copy of the files — nothing is broadcast) → sharded normals → keypoints →
-    sharded descriptors → ICI-ring matching → psum RANSAC → psum ICP.
-    The mesh spans all global devices, so collectives ride ICI within a host
-    and DCN across hosts; every host returns the same result dict.
+    sharded descriptors → ring matching → psum RANSAC → psum ICP.
+    The mesh spans all global devices, so collectives ride NVLink within a
+    host and the network across hosts; every host returns the same result dict.
 
     Reference: single-node only — this fulfils the rebuild's multi-host
     north-star requirement (SURVEY.md intro, §5 distributed row)."""
@@ -70,7 +71,8 @@ def run_multihost(
     from ..models.normals import compute_normals
     from ..pipeline import RegistrationPipeline
 
-    initialize_distributed(coordinator_address, num_processes, process_id)
+    initialize_distributed(coordinator_address, num_processes, process_id,
+                           local_device_ids)
     mesh = make_mesh()  # all global devices
 
     def normals_callback(q, c, **kw):
@@ -118,8 +120,13 @@ def initialize_distributed(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
+    local_device_ids: list[int] | None = None,
 ) -> None:
-    """Bring up DCN coordination; no-op on single-process runs."""
+    """Bring up multi-process coordination; no-op on single-process runs.
+
+    ``local_device_ids`` restricts this process to those local GPUs: several
+    processes on one host each take one card with ``[process_id]`` (None:
+    every local device is visible, one process per host)."""
     if num_processes is None or num_processes <= 1:
         logger.info("single-process run: skipping jax.distributed.initialize")
         return
@@ -127,6 +134,7 @@ def initialize_distributed(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_device_ids,
     )
     logger.info(
         "distributed: process %d/%d, %d local / %d global devices",
@@ -166,7 +174,7 @@ def scaling_report(
 
     The number is only meaningful on real devices (on a virtual CPU mesh the
     "devices" share the same cores); ``bench.py`` runs this on hardware and
-    the TPU-gated test asserts the ≥80% BASELINE target when ≥2 real chips
+    the GPU-only test asserts the ≥80% BASELINE target when ≥2 real chips
     are visible."""
     from .sharded import ring_match, sharded_fpfh
 

@@ -5,10 +5,10 @@ The sharding layout (SURVEY.md §5, BASELINE.json north star):
 - **Descriptors** — keypoint blocks are data-parallel: each device computes
   SHOT local RFs + histograms for its keypoint shard against the replicated
   support cloud.  No collectives in the hot loop.
-- **Matching** — scan descriptors stay put; *ref-descriptor tiles ride an ICI
+- **Matching** — scan descriptors stay put; *ref-descriptor tiles ride a device
   ring* (``ppermute``), each device keeping a running top-2 against every ref
   tile — the ring-attention dataflow, so the full K_scan x K_ref distance
-  matrix never exists in any one chip's HBM.
+  matrix never exists in any one chip's device memory.
 - **RANSAC** — draws are solved identically everywhere (tiny batched Kabsch);
   inlier counting is sharded over matches and ``psum``-reduced.
 - **ICP** — scan points sharded; each iteration psums either the 6x6
@@ -106,28 +106,16 @@ def sharded_shot_descriptors(
 
     rf_spec = P(POINTS_AXIS, None, None)
     if use_grid:
-        from ..models.shot import _use_dma_kernel, shot_from_window_ff
+        from ..models.shot import shot_from_window_ff
         from ..ops.grid_hash import window_distances
 
         max_r = float(radius) if rf_radius is None else float(max(radius, rf_radius))
         grid = build_grid(np.asarray(support, np.float32), max_r / 2,
                           extras=np.asarray(normals, np.float32), halo=2)
-        use_dma = _use_dma_kernel(grid)
         grid = jax.tree_util.tree_map(lambda x: replicate(np.asarray(x), mesh), grid)
         grid_specs = jax.tree_util.tree_map(lambda _: P(), grid)
 
         def window_body(kp_block, rfs_block, grid_rep):
-            if use_dma:
-                # run-DMA fused kernel: fetch + LRF + binning + histogram in
-                # one program per keypoint block, no XLA gather
-                from ..ops.pallas_shot_dma import shot_descriptor_dma
-
-                return shot_descriptor_dma(
-                    grid_rep, kp_block, radius, rfs=rfs_block,
-                    rf_radius=rf_radius if rfs_block is None else None,
-                    normalize=normalize,
-                    min_neighborhood_size=min_neighborhood_size,
-                )
             # grouped feature-planar window fetch + no-top-k SHOT — the same
             # exact-uncapped formulation as the single-device grid path
             vals, d, win_ok, _rows = window_distances(grid_rep, kp_block)
@@ -145,16 +133,12 @@ def sharded_shot_descriptors(
                 rf_radius=rf_radius if rf_dist_inf is not None else None,
             )
 
-        # interpret-mode Pallas can't thread varying-manual-axes through its
-        # jaxpr eval (JAX asks for check_vma=False as the workaround); the
-        # real-TPU Mosaic lowering is covered by the kernel's _align_vma
         if rfs_in is None:
             @jax.jit
             @functools.partial(
                 jax.shard_map, mesh=mesh,
                 in_specs=(P(POINTS_AXIS, None), grid_specs),
                 out_specs=(P(POINTS_AXIS, None), rf_spec),
-                check_vma=not use_dma,
             )
             def compute_grid(kp_block, grid_rep):
                 return window_body(kp_block, None, grid_rep)
@@ -166,7 +150,6 @@ def sharded_shot_descriptors(
                 jax.shard_map, mesh=mesh,
                 in_specs=(P(POINTS_AXIS, None), rf_spec, grid_specs),
                 out_specs=(P(POINTS_AXIS, None), rf_spec),
-                check_vma=not use_dma,
             )
             def compute_grid_rfs(kp_block, rfs_block, grid_rep):
                 return window_body(kp_block, rfs_block, grid_rep)
@@ -433,11 +416,9 @@ def sharded_fpfh(
         # path): SPFH computed over EXACT uncapped windows in grid-sorted
         # order, sharded by row index; the aggregation re-gathers neighbor
         # SPFH with the same grouped window indices
-        from ..models.fpfh import (_fpfh_window_agg_block, _spfh_window_block,
-                                   _use_dma_spfh)
+        from ..models.fpfh import _fpfh_window_agg_block, _spfh_window_block
 
         grid = build_grid(cloud, float(radius) / 2, extras=nrm, halo=2)
-        use_dma = _use_dma_spfh(grid)
         orig_idx_np = np.asarray(grid.orig_idx)
         grid = jax.tree_util.tree_map(lambda x: replicate(np.asarray(x), mesh), grid)
         grid_specs = jax.tree_util.tree_map(lambda _: P(), grid)
@@ -452,27 +433,12 @@ def sharded_fpfh(
             jax.shard_map, mesh=mesh,
             in_specs=(P(POINTS_AXIS), grid_specs),
             out_specs=P(POINTS_AXIS, None),
-            # interpret-mode Pallas can't thread varying-manual-axes through
-            # its jaxpr eval (JAX asks for check_vma=False as the
-            # workaround); the real-TPU Mosaic lowering is covered by the
-            # kernel's own _align_vma handling
-            check_vma=not use_dma,
         )
         def pass1(idx_blk, grid_rep):
-            if use_dma:
-                from ..ops.pallas_radius import tile_table
-                from ..ops.pallas_shot_dma import spfh_block_dma
-
-                table = tile_table(grid_rep.packed_sorted[:, :6], 8)
-
             def one(ib):
                 safe = jnp.minimum(ib, n - 1)
                 rowvals = grid_rep.packed_sorted[safe]
                 qc = jnp.where((ib < n)[:, None], rowvals[:, :3], 1.0e6)
-                if use_dma:
-                    return spfh_block_dma(grid_rep, table, qc,
-                                          rowvals[:, 3:6], radius, n_bins,
-                                          decorrelated)
                 return _spfh_window_block(
                     grid_rep, qc, rowvals[:, 3:6], radius, n_bins, decorrelated
                 )
@@ -596,15 +562,12 @@ def ring_match(
     )
     def inner(a_blk, b_blk, bv_blk):
         # same compute-dtype convention as the single-device matcher
-        # (registration.matching._top_scan): bf16 operands / f32 accumulation
-        # by default, norms computed FROM the rounded values — so the mesh and
+        # (registration.matching._top_scan): bf16 operands / f32 accumulation,
+        # norms computed FROM the rounded values — so the mesh and
         # single-device paths see identical quantization (and the ref tiles
-        # ride the ICI at half the bytes); SHOT_FPFH_MATCH_BF16=0 restores f32
-        from ..registration.matching import _match_bf16_default
-
-        cdt = jnp.bfloat16 if _match_bf16_default() else jnp.float32
-        a_blk = a_blk.astype(cdt)
-        b_blk = b_blk.astype(cdt)
+        # ride the ring at half the bytes)
+        a_blk = a_blk.astype(jnp.bfloat16)
+        b_blk = b_blk.astype(jnp.bfloat16)
         qb = b_blk.shape[0]
         me = jax.lax.axis_index(POINTS_AXIS)
         perm = [(j, (j + 1) % n_dev) for j in range(n_dev)]

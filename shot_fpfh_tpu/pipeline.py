@@ -3,7 +3,7 @@
 The host-level counterpart of the reference's ``RegistrationPipeline``
 (pipeline.py:33-608): holds the scan/ref clouds, memoizes per-stage results
 (recompute only on ``force_recompute``), and dispatches each stage to the
-batched TPU kernels.  Stage timings/throughputs are recorded in
+batched device programs.  Stage timings/throughputs are recorded in
 ``self.metrics`` (``utils.StageMetrics``).
 
 Note on strings: the dispatcher ``ValueError``/assert messages ("Incorrect
@@ -67,8 +67,8 @@ class RegistrationPipeline:
     metrics: StageMetrics = field(default_factory=StageMetrics)
     # Multi-chip: a jax.sharding.Mesh with >1 device routes descriptors,
     # matching, RANSAC and ICP through parallel.sharded (keypoint-sharded
-    # descriptors, ICI-ring matching, psum reductions).  None = single device.
-    # The CLI builds this from ComputeConfig.n_devices / mesh_axis — the TPU
+    # descriptors, ring matching, psum reductions).  None = single device.
+    # The CLI builds this from ComputeConfig.n_devices / mesh_axis — the device
     # counterpart of the reference's n_procs driving its pool
     # (shot_parallelization.py:31).
     mesh: object | None = None

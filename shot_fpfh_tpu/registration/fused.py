@@ -6,7 +6,7 @@ The reference executes registration as a sequence of host-orchestrated stages
   SHOT descriptors (scan+ref) → ratio matching → RANSAC → point-to-plane ICP
 
 — compiles into a single ``jit``: zero host round-trips, every intermediate
-stays in HBM, and XLA schedules/fuses across stage boundaries.  This is the
+stays in device memory, and XLA schedules/fuses across stage boundaries.  This is the
 production serving entry point (and the driver's ``entry()`` flagship step).
 
 Fixed-shape tricks that make it possible:
@@ -62,22 +62,8 @@ def _shot(kp, valid, sup, nrm, radius, k_max, min_nb, grid=None,
         # exact uncapped radius neighborhoods at ~2x the selected-k
         # throughput (requires the grid built with extras=normals and a cell
         # covering max(radius, rf_radius))
-        from ..models.shot import _use_dma_kernel, shot_from_window_ff
+        from ..models.shot import shot_from_window_ff
         from ..ops.grid_hash import window_distances
-
-        if _use_dma_kernel(grid):
-            # run-DMA fused kernel: no XLA gather; padding keypoints are
-            # zeroed post-hoc (the gather path folds ``valid`` into the
-            # window mask instead — same per-row result)
-            from ..ops.pallas_shot_dma import shot_descriptor_dma
-
-            desc, rfs = shot_descriptor_dma(
-                grid, kp, radius, rfs=local_rfs,
-                rf_radius=rf_radius if local_rfs is None else None,
-                normalize=True, min_neighborhood_size=min_nb,
-            )
-            desc = jnp.where(valid[:, None], desc, 0.0)
-            return (desc, rfs) if return_rfs else desc
 
         vals, d, win_ok, _rows = window_distances(grid, kp)
         ok = win_ok & (d <= radius) & valid[:, None]
@@ -119,16 +105,9 @@ def _fpfh(kp_idx, valid, sup, nrm, radius, k_max, n_bins, decorrelated,
     and original cloud indices otherwise; invalid (padding) rows zero out so
     matching's nonzero-row convention treats them like empty SHOT rows."""
     if grid is not None:
-        from ..models.fpfh import (_fpfh_window_aggregate, _spfh_window_sorted,
-                                   _use_dma_spfh)
+        from ..models.fpfh import _fpfh_window_aggregate, _spfh_window_sorted
 
-        if _use_dma_spfh(grid):
-            from ..ops.pallas_shot_dma import spfh_sorted_dma
-
-            spfh_sorted = spfh_sorted_dma(grid, radius, n_bins, decorrelated)
-        else:
-            spfh_sorted = _spfh_window_sorted(grid, radius, n_bins,
-                                              decorrelated)
+        spfh_sorted = _spfh_window_sorted(grid, radius, n_bins, decorrelated)
         desc = _fpfh_window_aggregate(grid, spfh_sorted, kp_idx, radius)
     else:
         from ..models.fpfh import _fpfh_aggregate, _spfh_from_values
@@ -432,18 +411,6 @@ def fused_registration_mesh(
     add_grid("scan_fpfh_grid", scan_fpfh_grid)
     add_grid("ref_fpfh_grid", ref_fpfh_grid)
 
-    use_dma = False
-    for g in (scan_grid, ref_grid):
-        if g is not None:
-            from ..models.shot import _use_dma_kernel
-
-            use_dma = use_dma or _use_dma_kernel(g)
-    for g in (scan_fpfh_grid, ref_fpfh_grid):
-        if g is not None:
-            from ..models.fpfh import _use_dma_spfh
-
-            use_dma = use_dma or _use_dma_spfh(g)
-
     # FPFH: SPFH row-id shards (grid case) / sentinel-padded support shards
     spfh_chunk = 4096
     if descriptor == "fpfh":
@@ -494,15 +461,6 @@ def fused_registration_mesh(
                         safe = jnp.minimum(ib, n - 1)
                         rowvals = g.packed_sorted[safe]
                         qc = jnp.where((ib < n)[:, None], rowvals[:, :3], 1.0e6)
-                        if use_dma:
-                            from ..ops.pallas_radius import tile_table
-                            from ..ops.pallas_shot_dma import spfh_block_dma
-
-                            table = tile_table(g.packed_sorted[:, :6], 8)
-                            return spfh_block_dma(g, table, qc,
-                                                  rowvals[:, 3:6], radius,
-                                                  fpfh_n_bins,
-                                                  fpfh_decorrelated)
                         return _spfh_window_block(g, qc, rowvals[:, 3:6],
                                                   radius, fpfh_n_bins,
                                                   fpfh_decorrelated)
@@ -679,8 +637,7 @@ def fused_registration_mesh(
         # Outputs mix vma-invariant (psum-derived) and vma-varying
         # (all_gather-derived) values whose per-device contents are identical
         # by construction; stack them on a leading device axis and let the
-        # host take row 0 — uniform, and it also works under check_vma=False
-        # (the DMA-kernel gate), where P() out_specs would be rejected.
+        # host take row 0.
         def out_stack(x):
             vma = getattr(jax.typeof(x), "vma", frozenset())
             if AX not in vma:
@@ -694,7 +651,6 @@ def fused_registration_mesh(
     out_specs = tuple(P(AX, *([None] * n)) for n in (2, 1, 2, 1, 0, 0, 0, 0))
     run = jax.jit(jax.shard_map(
         body, mesh=mesh, in_specs=(specs,), out_specs=out_specs,
-        check_vma=not use_dma,
     ))
     outs = run(data)
 

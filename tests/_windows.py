@@ -1,4 +1,4 @@
-"""Shared random window-case generator for the fused-kernel tests.
+"""Shared random window-case generator for the window-descriptor tests.
 
 Builds a feature-first candidate window around random keypoints: (Q, 8, W)
 ``[x y z nx ny nz 0 0]`` rows plus a distance-or-+inf plane, mirroring what

@@ -2,7 +2,7 @@
 
 Each worker owns 4 virtual CPU devices; jax.distributed assembles them into
 one 8-device global mesh across the two processes — the CPU-backend stand-in
-for a 2-host TPU pod slice (SURVEY.md §5 distributed row, BASELINE config #5).
+for a 2-host device mesh (SURVEY.md §5 distributed row, BASELINE config #5).
 """
 
 import json

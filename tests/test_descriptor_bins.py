@@ -1,9 +1,10 @@
 """Direct tests of the shared bin-convention module (ops.descriptor_bins).
 
-The consumers (XLA SHOT, the streaming Pallas oracle, the fused kernels) are
-oracle-tested elsewhere; here the merged 2-group terms are pinned against the
-raw ten reference contributions (shot.py:237-298) as an algebraic identity,
-and the Mosaic-safe primitives against their NumPy counterparts.
+The consumers (the SHOT and SPFH window paths and their sharded and fused
+variants) are oracle-tested elsewhere; here the merged 2-group terms are
+pinned against the raw ten reference contributions (shot.py:237-298) as an
+algebraic identity, and the arithmetic-only primitives against their NumPy
+counterparts.
 """
 
 import jax.numpy as jnp

@@ -102,3 +102,16 @@ def test_icp_wrapper_uses_cache():
                               voxel_size=0.8, max_iter=3)
     assert dc.upload_cache_stats()["entries"] == n_entries  # pure hits
     assert res1.rms == pytest.approx(res2.rms)
+
+
+def test_cache_is_keyed_on_the_target_device():
+    """The same bytes uploaded under two default devices give two buffers,
+    each on its own device (a process may run one cloud on two backends)."""
+    a = _big()
+    d0, d1 = jax.devices()[:2]
+    with jax.default_device(d0):
+        b0 = dc.to_device_cached(a)
+    with jax.default_device(d1):
+        b1 = dc.to_device_cached(a)
+    assert b0.devices() == {d0} and b1.devices() == {d1}
+    assert dc.upload_cache_stats()["entries"] == 2

@@ -84,70 +84,3 @@ def test_fused_registration_grid_path_matches_brute():
                        np.asarray(res_grid.icp_transform.rotation), atol=1e-3)
     assert np.allclose(np.asarray(res_brute.icp_transform.translation),
                        np.asarray(res_grid.icp_transform.translation), atol=1e-3)
-
-
-@pytest.mark.slow
-def test_fused_registration_dma_route_matches_gather():
-    """With the DMA gate on, the fused program's SHOT legs (single-scale,
-    bi-scale, multiscale) run the run-DMA kernel; results must match the
-    grouped-gather fused program."""
-    import shot_fpfh_tpu.models.shot as ms
-    import shot_fpfh_tpu.ops.pallas_shot_dma as psd
-    from shot_fpfh_tpu.models.shot import _use_dma_kernel
-    from shot_fpfh_tpu.ops.grid_hash import build_grid
-    from shot_fpfh_tpu.registration.fused import fused_registration
-
-    rng = np.random.default_rng(5)
-    n = 1800  # small: interpret-mode run-DMA cost scales with rows x window
-    xy = rng.uniform(-4, 4, size=(n, 2))
-    z = 0.5 * np.sin(1.5 * xy[:, 0]) * np.cos(1.1 * xy[:, 1])
-    ref = (np.column_stack([xy, z])
-           + rng.normal(scale=0.01, size=(n, 3))).astype(np.float32)
-    nrm = rng.normal(size=(n, 3)); nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-    nrm = nrm.astype(np.float32)
-    scan = ref + np.float32(0.05)
-    kp = jnp.asarray(ref[:64])
-    valid = jnp.ones(64, bool)
-    args = (kp + 0.05, valid, kp, valid, jnp.asarray(scan), jnp.asarray(nrm),
-            jnp.asarray(ref), jnp.asarray(nrm),
-            jnp.asarray(scan[::4]), jnp.ones(len(scan[::4]), bool),
-            jax.random.key(0))
-    kw = dict(radius=0.8, k_max=64, min_neighborhood_size=3, n_draws=128,
-              max_iter=5)
-    grids = dict(
-        scan_grid=build_grid(scan, 0.4, extras=nrm, halo=2),
-        ref_grid=build_grid(ref, 0.4, extras=nrm, halo=2),
-        ref_icp_grid=build_grid(ref, 0.3),
-    )
-    assert _use_dma_kernel(grids["scan_grid"]) is False  # TPU-only gate
-    assert grids["scan_grid"].use_xyrow and grids["ref_grid"].use_xyrow
-    cases = (dict(), dict(rf_radius=0.45),
-             dict(descriptor="shot_multiscale", ms_radii=(0.45, 0.8)))
-    calls = []
-    orig = psd.shot_descriptor_dma
-
-    def spy(*a, **kwargs):
-        calls.append(1)
-        return orig(*a, **kwargs)
-
-    for extra in cases:
-        res_gather = fused_registration(*args, **kw, **grids, **extra)
-        # the real gate is TPU-only: force it open (interpret mode resolves
-        # automatically on CPU); the spy proves the DMA leg actually ran.
-        # The routing decision happens at trace time, so the cached gather
-        # trace must be dropped before (and the DMA trace after) the
-        # patched call.
-        fused_registration.clear_cache()
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(psd, "shot_descriptor_dma", spy)
-            mp.setattr(ms, "_use_dma_kernel", lambda grid: True)
-            res_dma = fused_registration(*args, **kw, **grids, **extra)
-        fused_registration.clear_cache()
-        assert calls, "DMA route was not taken"
-        assert int(res_gather.n_matches) == int(res_dma.n_matches), extra
-        assert np.allclose(
-            np.asarray(res_gather.icp_transform.rotation),
-            np.asarray(res_dma.icp_transform.rotation), atol=1e-3), extra
-        assert np.allclose(
-            np.asarray(res_gather.icp_transform.translation),
-            np.asarray(res_dma.icp_transform.translation), atol=1e-3), extra

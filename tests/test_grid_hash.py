@@ -100,23 +100,6 @@ def test_grid_shot_descriptors_match_brute(rng):
     np.testing.assert_allclose(np.asarray(brute), np.asarray(grid), atol=1e-4)
 
 
-@pytest.mark.slow
-def test_grid_approx_recall(rng):
-    pts = clouds(rng, n=5000, scale=2.0)
-    q = pts[:100]
-    radius = 0.8
-    grid = build_grid(pts, radius)
-    exact = grid_radius_search(grid, jnp.asarray(q), radius, 64)
-    approx = grid_radius_search(grid, jnp.asarray(q), radius, 64, approx=True)
-    recalls = []
-    for i in range(100):
-        e = set(np.asarray(exact.idx[i])[np.asarray(exact.mask[i])])
-        a = set(np.asarray(approx.idx[i])[np.asarray(approx.mask[i])])
-        if e:
-            recalls.append(len(e & a) / len(e))
-    assert np.mean(recalls) > 0.9
-
-
 def test_grid_with_values_matches_gather(rng):
     import numpy as np
     pts = rng.normal(size=(300, 3)).astype(np.float32) * 2.0
@@ -197,7 +180,7 @@ def test_radius_pca_tableless_fallback(rng):
     grid = HashGrid(grid.packed_sorted, grid.orig_idx, grid.cell_ids_sorted,
                     grid.origin, grid.dims, grid.cell_size,
                     jnp.zeros((1,), jnp.int32), grid.cell_cap, False,
-                    27 * grid.cell_cap, 3 * grid.cell_cap, 1)
+                    27 * grid.cell_cap, 1)
     q = pts[:20]
     cov, bary, cnt = grid_radius_pca(grid, jnp.asarray(q), radius)
     d = np.linalg.norm(q[:, None, :] - pts[None, :, :], axis=-1)
@@ -262,7 +245,7 @@ def test_window_path_tableless_grid(rng):
     grid_nt = HashGrid(grid.packed_sorted, grid.orig_idx, grid.cell_ids_sorted,
                        grid.origin, grid.dims, grid.cell_size,
                        jnp.zeros((1,), jnp.int32), grid.cell_cap, False,
-                       27 * grid.cell_cap, 3 * grid.cell_cap, 1)
+                       27 * grid.cell_cap, 1)
     q = pts[:32]
     _vals, dist, valid, rows = window_distances(grid_nt, jnp.asarray(q))
     got = (np.asarray(valid) & (np.asarray(dist) <= radius)).sum(axis=1)

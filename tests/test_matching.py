@@ -7,6 +7,7 @@ from shot_fpfh_tpu.registration import (
     match_descriptors,
     threshold_filter,
 )
+from shot_fpfh_tpu.registration.matching import _top_scan
 
 
 def make_descriptors(rng, n_scan=40, n_ref=50, dim=16):
@@ -166,75 +167,68 @@ def _top2_oracle(a, b):
 
 
 def test_top_scan_matches_dense_oracle_across_tiles(rng):
-    """The scanned-ref-tile top-1/top-2 reduction reproduces the dense oracle
-    exactly at f32 across both the scan-chunk (1024) and ref-tile (4096)
-    padding boundaries — ref sizes straddling one and two tiles."""
-    from shot_fpfh_tpu.registration.matching import (nearest_descriptor,
-                                                     top2_descriptor)
-
+    """The scanned-ref-tile top-1/top-2 reduction, in its f32 reference mode,
+    reproduces the dense oracle exactly across both the scan-chunk (1024) and
+    ref-tile (4096) padding boundaries — ref sizes straddling one and two
+    tiles."""
     for n_ref in (37, 4096, 4100, 8192 + 13):
         a = rng.normal(size=(150, 16)).astype(np.float32)
         b = rng.normal(size=(n_ref, 16)).astype(np.float32)
         i1_o, d1_o, d2_o = _top2_oracle(a, b)
-        idx, d1, d2 = top2_descriptor(
-            jnp.asarray(a), jnp.asarray(b), jnp.ones(n_ref, bool),
-            use_bf16=False)
+        idx, d1_sq, d2_sq = _top_scan(
+            jnp.asarray(a), jnp.asarray(b), jnp.ones(n_ref, bool), False, True)
         np.testing.assert_array_equal(np.asarray(idx), i1_o)
-        np.testing.assert_allclose(np.asarray(d1), d1_o, atol=1e-4)
-        np.testing.assert_allclose(np.asarray(d2), d2_o, atol=1e-4)
-        idx_n, d1_n = nearest_descriptor(
-            jnp.asarray(a), jnp.asarray(b), jnp.ones(n_ref, bool),
-            use_bf16=False)
+        np.testing.assert_allclose(np.sqrt(np.asarray(d1_sq)), d1_o, atol=1e-4)
+        np.testing.assert_allclose(np.sqrt(np.asarray(d2_sq)), d2_o, atol=1e-4)
+        idx_n, d1_n = _top_scan(
+            jnp.asarray(a), jnp.asarray(b), jnp.ones(n_ref, bool), False, False)
         np.testing.assert_array_equal(np.asarray(idx_n), i1_o)
-        np.testing.assert_allclose(np.asarray(d1_n), d1_o, atol=1e-4)
+        np.testing.assert_allclose(np.sqrt(np.asarray(d1_n)), d1_o, atol=1e-4)
 
 
 def test_top_scan_tie_semantics_and_validity_mask(rng):
     """Duplicate ref rows in DIFFERENT ref tiles: argmin-first tie resolution
     (the lower global index wins) and d2 == d1 so the Lowe ratio rejects; the
     validity mask excludes rows from the reduction entirely."""
-    from shot_fpfh_tpu.registration.matching import top2_descriptor
-
     n_ref = 4096 + 64  # two tiles
     b = rng.normal(size=(n_ref, 8)).astype(np.float32)
     b[4100] = b[17]           # duplicate across the tile boundary
     a = b[17:18].copy()
-    idx, d1, d2 = top2_descriptor(
-        jnp.asarray(a), jnp.asarray(b), jnp.ones(n_ref, bool), use_bf16=False)
+    idx, d1, d2 = _top_scan(
+        jnp.asarray(a), jnp.asarray(b), jnp.ones(n_ref, bool), False, True)
     assert int(idx[0]) == 17
     assert float(d1[0]) == 0.0 and float(d2[0]) == 0.0
     # mask out the first copy: the duplicate in the second tile must win
     valid = np.ones(n_ref, bool)
     valid[17] = False
-    idx, d1, _ = top2_descriptor(
-        jnp.asarray(a), jnp.asarray(b), jnp.asarray(valid), use_bf16=False)
+    idx, d1, _ = _top_scan(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(valid), False, True)
     assert int(idx[0]) == 4100 and float(d1[0]) == 0.0
 
 
 def test_top_scan_bf16_agrees_on_separated_descriptors(rng):
-    """bf16 matching (the default compute path) returns identical indices on
-    descriptors whose nearest-neighbor margin is far above the ~0.4% bf16
-    rounding — the regime real SHOT/FPFH matching lives in — and near-zero
-    self-distances (norms are computed from the rounded values, so only f32
-    accumulation-order residue survives, not bf16 rounding)."""
-    from shot_fpfh_tpu.registration.matching import top2_descriptor
+    """bf16 matching (the matcher's compute path) returns the f32 reference's
+    indices on descriptors whose nearest-neighbor margin is far above the
+    ~0.4% bf16 rounding — the regime real SHOT/FPFH matching lives in — and
+    near-zero self-distances (norms are computed from the rounded values, so
+    only f32 accumulation-order residue survives, not bf16 rounding)."""
+    from shot_fpfh_tpu.registration.matching import (nearest_descriptor,
+                                                     top2_descriptor)
 
     scan, ref, pick = make_descriptors(rng, n_scan=100, n_ref=200, dim=32)
-    i_f, d1_f, d2_f = top2_descriptor(
+    i_f, d1_f, d2_f = _top_scan(
         jnp.asarray(scan), jnp.asarray(ref), jnp.ones(len(ref), bool),
-        use_bf16=False)
+        False, True)
     i_b, d1_b, d2_b = top2_descriptor(
-        jnp.asarray(scan), jnp.asarray(ref), jnp.ones(len(ref), bool),
-        use_bf16=True)
+        jnp.asarray(scan), jnp.asarray(ref), jnp.ones(len(ref), bool))
     np.testing.assert_array_equal(np.asarray(i_f), np.asarray(i_b))
-    np.testing.assert_allclose(np.asarray(d1_b), np.asarray(d1_f), atol=0.05)
-    np.testing.assert_allclose(np.asarray(d2_b), np.asarray(d2_f), rtol=0.02)
+    np.testing.assert_allclose(np.asarray(d1_b), np.sqrt(np.asarray(d1_f)),
+                               atol=0.05)
+    np.testing.assert_allclose(np.asarray(d2_b), np.sqrt(np.asarray(d2_f)),
+                               rtol=0.02)
     # self-match: bf16 distances cancel exactly
-    i_s, d_s = __import__(
-        "shot_fpfh_tpu.registration.matching", fromlist=["nearest_descriptor"]
-    ).nearest_descriptor(
-        jnp.asarray(ref), jnp.asarray(ref), jnp.ones(len(ref), bool),
-        use_bf16=True)
+    i_s, d_s = nearest_descriptor(
+        jnp.asarray(ref), jnp.asarray(ref), jnp.ones(len(ref), bool))
     np.testing.assert_array_equal(np.asarray(i_s), np.arange(len(ref)))
     assert float(np.abs(np.asarray(d_s)).max()) < 0.01
 

@@ -265,42 +265,3 @@ def test_sharded_fpfh_grid_path_matches_single_device(mesh):
     ))
     multi = sharded_fpfh(kp_idx, pts, nrm, 0.5, mesh, n_bins=5)
     np.testing.assert_allclose(multi, single, atol=1e-4)
-
-
-@pytest.mark.slow
-def test_sharded_fpfh_dma_route_matches_gather(mesh, monkeypatch):
-    """With the DMA gate on, the sharded FPFH pass 1 runs the run-DMA SPFH
-    block (ops/pallas_shot_dma.spfh_block_dma) inside shard_map; descriptors
-    must match the grouped-gather mesh route up to rare atan2 bin flips."""
-    import shot_fpfh_tpu.models.fpfh as mf
-    import shot_fpfh_tpu.ops.pallas_shot_dma as psd
-    from shot_fpfh_tpu.ops import grid_hash
-
-    rng = np.random.default_rng(12)
-    n = 2600
-    xy = rng.uniform(-4, 4, size=(n, 2))
-    z = 0.4 * np.sin(xy[:, 0]) * np.cos(1.3 * xy[:, 1])
-    pts = np.column_stack([xy, z]).astype(np.float32)
-    nrm = rng.normal(size=(n, 3)).astype(np.float32)
-    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-    kp_idx = np.arange(0, n, 37, dtype=np.int32)
-
-    monkeypatch.setattr(grid_hash, "AUTO_GRID_MIN_POINTS", 2000)
-    ref = np.asarray(sharded_fpfh(kp_idx, pts, nrm, 0.5, mesh, n_bins=5))
-    # the real gate is TPU-only: force it open (interpret mode resolves
-    # automatically on CPU) and prove the DMA block actually ran
-    calls = []
-    orig = psd.spfh_block_dma
-
-    def spy(*a, **kw):
-        calls.append(1)
-        return orig(*a, **kw)
-
-    monkeypatch.setattr(psd, "spfh_block_dma", spy)
-    monkeypatch.setattr(mf, "_use_dma_spfh", lambda grid: True)
-    got = np.asarray(sharded_fpfh(kp_idx, pts, nrm, 0.5, mesh, n_bins=5))
-    assert calls, "DMA route was not taken"
-    assert got.shape == ref.shape
-    dd = np.abs(got - ref)
-    assert (dd > 1e-3).mean() <= 1e-3, (dd.max(), (dd > 1e-3).mean())
-    assert np.abs(got).sum() > 0

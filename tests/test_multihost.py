@@ -138,3 +138,21 @@ def test_run_multihost_single_process_fpfh(tmp_path):
     ang = float(rotation_angle(
         jnp.asarray(np.array(res["rotation"], np.float32)), exact.rotation))
     assert ang < 0.03
+
+
+def test_initialize_distributed_forwards_local_device_ids(monkeypatch):
+    """One process per card on a multi-GPU host: the process's card list
+    reaches ``jax.distributed.initialize``; single-process runs skip it."""
+    import jax
+
+    from shot_fpfh_tpu.parallel.multihost import initialize_distributed
+
+    calls = []
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: calls.append(kw))
+    initialize_distributed("localhost:1234", 1, 0, local_device_ids=[0])
+    assert calls == []
+    initialize_distributed("localhost:1234", 4, 2, local_device_ids=[2])
+    assert calls == [dict(coordinator_address="localhost:1234",
+                          num_processes=4, process_id=2,
+                          local_device_ids=[2])]

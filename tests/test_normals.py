@@ -184,27 +184,6 @@ def test_grid_radius_pca_vector_radius(rng):
 
 
 @pytest.mark.slow
-def test_radius_pca_pallas_vector_radius(rng):
-    """The Pallas streaming kernel must honor per-query radii (qpos lane 3)."""
-    from shot_fpfh_tpu.ops.grid_hash import build_grid, grid_radius_pca
-    from shot_fpfh_tpu.ops.pallas_radius import radius_pca_pallas
-
-    # small on purpose: interpret-mode run-DMA cost scales with q x runs
-    # (the 1200-point / 32-query version of this case was 94 s of slow-suite)
-    xy = rng.uniform(-2, 2, size=(600, 2))
-    z = 0.3 * np.sin(1.2 * xy[:, 0]) * np.cos(0.8 * xy[:, 1])
-    pts = np.column_stack([xy, z]).astype(np.float32)
-    grid = build_grid(pts, 0.7)
-    q = jnp.asarray(pts[:16])
-    radii = np.asarray(rng.uniform(0.15, 0.7, size=16), np.float32)
-    cov_p, bary_p, cnt_p = radius_pca_pallas(grid, q, radii)
-    cov_x, bary_x, cnt_x = grid_radius_pca(grid, q, radii)
-    np.testing.assert_array_equal(np.asarray(cnt_p), np.asarray(cnt_x))
-    np.testing.assert_allclose(np.asarray(bary_p), np.asarray(bary_x), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(cov_p), np.asarray(cov_x), atol=1e-4)
-
-
-@pytest.mark.slow
 def test_streaming_knn_normals_matches_exact(monkeypatch, rng):
     """The large-cloud k-mode route (streaming covariance with k-targeting
     adaptive radii, VERDICT r3 #3) must agree with exact k-NN PCA normals up
@@ -244,3 +223,42 @@ def test_streaming_knn_normals_net_catches_sparse(rng):
     # sparse-region rows went through the exact net: identical up to sign
     dots = np.abs(np.sum(ours[100:] * exact[100:], axis=1))
     assert np.all(dots > 1 - 1e-4), dots.min()
+
+
+def test_kth_distance_bound_exact_far_from_origin(rng):
+    """The k-th-neighbor bound is exact to the f32 rounding of the distance
+    itself, also for a cloud far from the origin, where the matmul expansion
+    ‖a‖² + ‖b‖² − 2a·b cancels most of its digits."""
+    from shot_fpfh_tpu.ops.grid_hash import kth_distance_bound
+
+    pts = (rng.uniform(-4, 4, size=(3000, 3)) * [1.0, 1.0, 0.1]
+           + [60.0, -40.0, 10.0]).astype(np.float32)
+    sample = pts[::30][:100]
+    got = np.asarray(kth_distance_bound(jnp.asarray(sample), jnp.asarray(pts), 12))
+    d = np.linalg.norm(sample[:, None].astype(np.float64) - pts[None], axis=-1)
+    np.testing.assert_allclose(got, np.sort(d, axis=1)[:, 11], rtol=1e-6)
+
+
+def test_streaming_normals_independent_of_kth_rounding(monkeypatch, rng):
+    """The streaming normals calibrate every query's radius from the sampled
+    k-th-neighbor bound, and a point moves in or out of a radius on the
+    smallest change to it.  With the bound exact to f32 rounding, a float64
+    bound changes no normal, so the backend's rounding does not either."""
+    import shot_fpfh_tpu.models.normals as nm
+    from shot_fpfh_tpu.ops import grid_hash
+
+    xy = rng.uniform(-5, 5, size=(8000, 2))
+    z = 0.6 * np.sin(1.1 * xy[:, 0]) * np.cos(0.9 * xy[:, 1])
+    pts = np.column_stack([xy, z]).astype(np.float32)
+    monkeypatch.setattr(nm, "AUTO_GRID_MIN_POINTS", 1000)
+    ours = np.asarray(nm.compute_normals(pts, pts, k=30), np.float64)
+
+    def kth64(sample, points, k):
+        d2 = np.sum((np.asarray(sample, np.float64)[:, None]
+                     - np.asarray(points, np.float64)[None]) ** 2, axis=-1)
+        return jnp.asarray(np.sqrt(np.sort(d2, axis=1)[:, k - 1]), jnp.float32)
+
+    monkeypatch.setattr(grid_hash, "kth_distance_bound", kth64)
+    ref = np.asarray(nm.compute_normals(pts + 0.0, pts + 0.0, k=30), np.float64)
+    sign = np.where(np.sum(ours * ref, axis=1, keepdims=True) < 0, -1.0, 1.0)
+    assert np.abs(ours - sign * ref).max() <= 1e-6

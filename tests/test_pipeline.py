@@ -133,8 +133,14 @@ def test_fpfh_pipeline_end_to_end(rng):
     assert ang < 0.03, f"FPFH pipeline rotation error {np.degrees(ang):.2f} deg"
 
 
-def test_cli_end_to_end(tmp_path, rng):
-    """Full CLI run on synthetic .ply pair + .conf ground truth."""
+def test_cli_end_to_end(tmp_path, rng, monkeypatch):
+    """Full CLI run on synthetic .ply pair + .conf ground truth, in a process
+    where PyYAML and scikit-learn cannot be imported."""
+    import json
+    import sys
+
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    monkeypatch.setitem(sys.modules, "sklearn", None)
     from shot_fpfh_tpu.cli import main
     from shot_fpfh_tpu.core import matrix_to_quaternion
 
@@ -177,7 +183,11 @@ def test_cli_end_to_end(tmp_path, rng):
     ])
     assert code == 0  # registration ACCEPTED
     assert (tmp_path / "results" / "scan_on_ref_post_icp.ply").exists()
-    assert (tmp_path / "metrics.json").exists()
+    with open(tmp_path / "metrics.json") as f:
+        metrics = json.load(f)
+    assert metrics["accepted"] is True and metrics["stages"]
+    for key in ("transform_ransac", "transform_icp"):
+        assert np.asarray(metrics[key]).shape == (4, 4)
 
 
 def test_per_scale_shot_api_and_state_roundtrip(tmp_path, rng):

@@ -3,11 +3,11 @@
 benchmarks/measure_reference.py runs the actual `/root/reference` package on
 a deterministic golden pair and records its final transform + ATE in
 BASELINE_measured.json (plus the pair itself in benchmarks/golden_pair.npz).
-This test runs the TPU pipeline on byte-identical inputs and asserts the
+This test runs the JAX pipeline on byte-identical inputs and asserts the
 registration lands within the reference's accuracy envelope.
 
 The pair is noiseless (scan is an exact rigid motion of ref), so the f64
-reference converges to machine-zero ATE; the f32 TPU build lands at ~1e-6.
+reference converges to machine-zero ATE; the f32 JAX build lands at ~1e-6.
 "Within the bound" is therefore asserted as: transform agrees with the
 reference's recorded transform to 1e-3 and the ATE is orders of magnitude
 inside the 0.1 acceptance threshold (config/default.yaml:37-40)."""
